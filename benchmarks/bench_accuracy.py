@@ -1,8 +1,7 @@
-"""Decompose the f32 GPR objective error vs the f64 oracle (VERDICT r3 #4).
+"""Decompose the f32 GPR objective error vs the f64 oracle.
 
-At the headline shape the perf-mode objective differs from the f64 oracle
-by ~2.6e-5 relative (BENCH_r03). Before building a compensated mode, split
-that error into its sources:
+Before building a compensated mode, split the perf-mode objective's
+error against the f64 oracle at the headline shape into its sources:
 
   obj32          device f32 objective (default path)
   obj_K32_f64    host f64 objective computed FROM the device's f32 Gram
@@ -68,7 +67,7 @@ def main():
     K64 = np.exp(-0.5 * np.maximum(sq, 0)) + noise * np.eye(N)
     obj_true, logdet_true, quad_true = host_objective_f64(K64, Y)
 
-    # ---- device f32 pieces (XLA route: the measured default at this N)
+    # ---- device f32 pieces
     Xj = jnp.asarray(X) / ls
     Yj = jnp.asarray(Y)
 

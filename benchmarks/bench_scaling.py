@@ -60,10 +60,9 @@ _ap.add_argument("--cyclic", action="store_true",
                       "Cholesky factorization, lookahead on vs off, at "
                       "each mesh size")
 _ap.add_argument("--real", action="store_true",
-                 help="use the real accelerator devices (pod). Default is "
-                      "the virtual CPU mesh: creating the TPU client is "
-                      "exclusive-access, and a 1-chip session can't scale "
-                      "anyway")
+                 help="use the real accelerator devices. Default is the "
+                      "virtual CPU mesh, which measures partitioning and "
+                      "collective overhead only")
 args = _ap.parse_args()
 
 sizes = sorted({int(s) for s in args.devices.split(",")})

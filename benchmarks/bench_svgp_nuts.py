@@ -47,8 +47,8 @@ def bench_svgp(N=100_000, M=256, B=1024, steps=20):
         )
         return leaves, opt_state, losses
 
-    # compile with one key, time with a DIFFERENT key (the runtime memoizes
-    # repeat executions with identical inputs) and force with device_get
+    # compile with one key, time with a DIFFERENT key and force with
+    # device_get
     leaves, opt_state2, losses = run(leaves, opt_state, jax.random.PRNGKey(0))
     float(losses[-1])
     t0 = time.perf_counter()
@@ -175,11 +175,10 @@ def bench_nuts(N=1000, chains=8, samples=None, warmup=None):
     x0s = jnp.tile(x0, (chains, 1))
 
     # everything window-chunked: warmup AND sampling run as short device
-    # programs — monolithic warmup at convergence-grade lengths (300
-    # draws × 8 chains) crashes the remote worker's long-program
-    # watchdog (observed 2026-08-20), so the Stan phases are driven from
-    # the host via nuts_warmup_window, chunked to ≤ `chunk` transitions
-    # per program, with the (da, welford, inv_mass) state riding along
+    # programs, the Stan phases driven from the host via
+    # nuts_warmup_window, chunked to ≤ `chunk` transitions per program,
+    # with the (da, welford, inv_mass) state riding along (progress is
+    # printed between windows)
     window = int(os.environ.get("BENCH_NUTS_WINDOW", 32))
     chunk = int(os.environ.get("BENCH_NUTS_CHUNK", 50))
 

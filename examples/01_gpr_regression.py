@@ -1,5 +1,5 @@
 """Exact GPR on a 1-D sinusoid — the canonical reference program
-(SURVEY §1), rebuilt on the TPU-native API.
+(SURVEY §1), rebuilt on this package's API.
 
 Run: python examples/01_gpr_regression.py
 """

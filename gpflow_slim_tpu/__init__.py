@@ -1,6 +1,6 @@
-"""gpflow_slim_tpu — a TPU-native Gaussian-process inference engine.
+"""gpflow_slim_tpu — a Gaussian-process inference engine in JAX.
 
-A from-scratch JAX/XLA/Pallas redesign with the capabilities of
+A from-scratch JAX/XLA redesign with the capabilities of
 ssydasheng/GPflow-Slim (see SURVEY.md): kernels, exact GPR, sparse
 SGPR/FITC, SVGP with natural gradients, VGP, GPMC/SGPMC, HMC/NUTS — models
 are pytrees, methods are pure functions, and everything composes with

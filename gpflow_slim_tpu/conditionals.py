@@ -36,9 +36,6 @@ def base_conditional_with_lm(Kmn, Lm, Knn, f, *, full_cov=False,
     """base_conditional given a precomputed Cholesky of Kmm (serving path)."""
     num_func = f.shape[1]  # P
 
-    # (M, N)-wide RHS: route through the switchable linalg so large test
-    # batches (SGPR/SVGP prediction) can hit the Pallas blocked TRSM; thin
-    # RHS still lands on XLA substitution inside ops.linalg's shape gate.
     A = ops_linalg.solve_lower(Lm, Kmn)  # (M, N)
 
     if full_cov:

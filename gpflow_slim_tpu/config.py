@@ -4,15 +4,14 @@ Replaces the reference's configparser-backed ``settings.py`` + ``gpflowslimrc``
 (ref:gpflowSlim/settings.py): ``float_type`` (float64 default there),
 ``jitter_level`` (~1e-6) and quadrature sizes, with a context-manager override.
 
-TPU-native redesign: instead of a mutable global read from inside graph
-construction, we keep a tiny immutable ``Settings`` dataclass plus a
-context-manager override. Nothing inside a jitted function reads mutable
+Instead of a mutable global read from inside graph construction, we keep a
+tiny immutable ``Settings`` dataclass plus a context-manager override. Nothing inside a jitted function reads mutable
 global state — settings are baked in at trace time (they are static Python
 values), which is exactly the XLA-friendly behavior we want.
 
-The dtype story (SURVEY §7.2 hard-part #1): TPU MXU is f32/bf16; float64 is
-slow emulation. Correctness/parity mode runs under ``jax_enable_x64`` (tests
-do this on CPU); perf mode runs f32 with jitter. ``default_float()`` resolves
+The dtype story (SURVEY §7.2 hard-part #1): correctness/parity mode runs
+under ``jax_enable_x64`` (tests do this on CPU); perf mode runs f32 with
+jitter. ``default_float()`` resolves
 to float64 iff x64 is enabled, mirroring how the reference defaulted to
 float64 under TF.
 """
@@ -38,11 +37,6 @@ class Settings:
       num_gauss_hermite_points: quadrature order for non-analytic
         likelihood expectations (reference default 20).
       dist_block_size: block size for distributed/blocked linear algebra.
-      use_pallas: route hot linalg through Pallas kernels when True and the
-        backend is TPU; otherwise use stock XLA ops. Default ON: the Pallas
-        gram/Cholesky kernels ARE the TPU performance path (SURVEY §2.1);
-        block sizes are compile-probed per shape with automatic fallback to
-        XLA (ops.linalg), so the flag is safe to leave on everywhere.
     """
 
     jitter: float = 1e-6
@@ -50,7 +44,6 @@ class Settings:
     positive_minimum: float = 1e-6
     num_gauss_hermite_points: int = 20
     dist_block_size: int = 256
-    use_pallas: bool = True
 
 
 _settings = Settings()
@@ -83,7 +76,7 @@ def x64_enabled() -> bool:
 
 
 def default_float():
-    """float64 when x64 is on (parity mode), else float32 (TPU perf mode)."""
+    """float64 when x64 is on (parity mode), else float32 (perf mode)."""
     return jnp.float64 if x64_enabled() else jnp.float32
 
 
@@ -93,7 +86,7 @@ def default_int():
 
 def default_jitter() -> float:
     """Dtype-aware jitter: the reference's 1e-6 is an f64 policy; f32
-    Cholesky (TPU perf mode) needs a larger floor (SURVEY §7.2 #1)."""
+    Cholesky (perf mode) needs a larger floor (SURVEY §7.2 #1)."""
     return _settings.jitter if x64_enabled() else max(
         _settings.jitter, _settings.jitter_f32
     )

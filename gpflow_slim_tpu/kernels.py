@@ -6,12 +6,11 @@ Pure-function pytree redesign of the reference kernel zoo: each kernel is a
 jit / grad / vmap / shard_map context — this preserves the reference's
 deep-kernel composability (arbitrary warped inputs may be passed to ``K``).
 
-TPU notes: stationary kernels compute the pairwise squared distance via the
-MXU-friendly expansion ``‖x‖² − 2·X X2ᵀ + ‖x2‖²`` (one big matmul instead of
-O(N·M·D) broadcasting), clipped at zero. ``euclid_dist = sqrt(r² + 1e-12)``
-— the epsilon keeps Matérn gradients finite at zero distance (parity
-constant, SURVEY App. A). The fused Pallas Gram path lives in
-``ops.pallas_gram`` and is routed via ``ops.linalg``.
+Stationary kernels compute the pairwise squared distance via the expansion
+``‖x‖² − 2·X X2ᵀ + ‖x2‖²`` (one matmul instead of O(N·M·D) broadcasting),
+clipped at zero; XLA fuses the elementwise kernel map after the cross
+product. ``euclid_dist = sqrt(r² + 1e-12)`` — the epsilon keeps Matérn
+gradients finite at zero distance (parity constant, SURVEY App. A).
 
 Parity conventions matched to the reference lineage:
   * RBF: ``σ² exp(−d²/2)`` with ℓ-scaled distances (ARD supported).
@@ -60,6 +59,37 @@ __all__ = [
 _EUCLID_EPS = 1e-12
 
 
+def _square_dist(Xs, X2s):
+    """Pairwise squared distance of pre-scaled inputs, clipped at zero (the
+    HIGHEST-precision cross matmul is explained in ``square_dist``)."""
+    xs = jnp.sum(jnp.square(Xs), axis=-1)
+    ys = jnp.sum(jnp.square(X2s), axis=-1)
+    cross = jnp.matmul(Xs, X2s.T, precision=jax.lax.Precision.HIGHEST)
+    return jnp.maximum(xs[:, None] - 2.0 * cross + ys[None, :], 0.0)
+
+
+def _gram(kind, Xs, X2s, variance):
+    """Stationary Gram ``K(Xs, X2s)`` of pre-scaled inputs
+    (``Xs = X / lengthscales``) for the static map ``kind``."""
+    d2 = _square_dist(Xs, X2s)
+    if kind == "rbf":
+        return variance * jnp.exp(-0.5 * d2)
+    r = jnp.sqrt(d2 + _EUCLID_EPS)
+    if kind == "matern12":
+        return variance * jnp.exp(-r)
+    if kind == "matern32":
+        s3 = np.sqrt(3.0)
+        return variance * (1.0 + s3 * r) * jnp.exp(-s3 * r)
+    if kind == "matern52":
+        s5 = np.sqrt(5.0)
+        return variance * (1.0 + s5 * r + 5.0 / 3.0 * d2) * jnp.exp(-s5 * r)
+    if kind == "exponential":
+        return variance * jnp.exp(-0.5 * r)
+    if kind == "cosine":
+        return variance * jnp.cos(r)
+    raise ValueError(f"unknown kind {kind!r}")
+
+
 class Kernel(Module):
     """Base kernel: ``active_dims`` slicing + combination operators."""
 
@@ -93,16 +123,6 @@ class Kernel(Module):
     # -- interface ---------------------------------------------------------
     def K(self, X, X2=None, presliced=False):
         raise NotImplementedError
-
-    def K_lower(self, X, presliced=False):
-        """K(X, X) for lower-triangle-only consumers (Cholesky input).
-
-        Contract: entries with row ≥ col equal ``K(X)``; entries above the
-        diagonal are unspecified. Stationary kernels override this with a
-        tile-grid kernel that skips the upper work; the default is the
-        full Gram (always a valid lower triangle).
-        """
-        return self.K(X, presliced=presliced)
 
     def Kdiag(self, X, presliced=False):
         raise NotImplementedError
@@ -184,23 +204,13 @@ class Stationary(Kernel):
         """ℓ-scaled pairwise squared distance via the matmul expansion.
 
         The cross matmul runs at Precision.HIGHEST: the expansion relies on
-        exact cancellation near the diagonal, and TPU default bf16-product
-        passes leave O(2⁻⁹)·‖x‖² residuals there (large enough to destroy
-        PD-ness at short lengthscales). The O(N²D) cost is negligible next
-        to the O(N³) factorizations these matrices feed.
+        exact cancellation near the diagonal, and a reduced-precision
+        product (TF32 on a GPU) leaves O(2⁻¹¹)·‖x‖² residuals there, large
+        enough to destroy PD-ness at short lengthscales. The O(N²D) cost
+        is negligible next to the O(N³) factorizations these matrices feed.
         """
         X = self._scaled(X)
-        Xs = jnp.sum(jnp.square(X), axis=-1)
-        hp = jax.lax.Precision.HIGHEST
-        if X2 is None:
-            d = -2.0 * jnp.matmul(X, X.T, precision=hp) \
-                + Xs[:, None] + Xs[None, :]
-        else:
-            X2 = self._scaled(X2)
-            X2s = jnp.sum(jnp.square(X2), axis=-1)
-            d = -2.0 * jnp.matmul(X, X2.T, precision=hp) \
-                + Xs[:, None] + X2s[None, :]
-        return jnp.maximum(d, 0.0)
+        return _square_dist(X, X if X2 is None else self._scaled(X2))
 
     def euclid_dist(self, X, X2):
         return jnp.sqrt(self.square_dist(X, X2) + _EUCLID_EPS)
@@ -208,10 +218,8 @@ class Stationary(Kernel):
     def Kdiag(self, X, presliced=False):
         return jnp.full((X.shape[0],), jnp.squeeze(self.variance.value), dtype=X.dtype)
 
-    # Stationary kernels with a fused-map code path (RBF/Matérn/Exponential)
-    # set ``_gram_kind``; K then routes through ops.pallas_gram — the Pallas
-    # fused tile kernel on TPU (config.use_pallas) or the identical jnp
-    # composite otherwise.
+    # Stationary kernels with a closed-form map of the squared distance
+    # (RBF/Matérn/Exponential/Cosine) set ``_gram_kind``; see ``_gram``.
     _gram_kind: str | None = None
 
     def K(self, X, X2=None, presliced=False):
@@ -219,64 +227,10 @@ class Stationary(Kernel):
             raise NotImplementedError
         if not presliced:
             X, X2 = self._slice(X, X2)
-        from .ops import linalg as _linalg
-        from .ops import pallas_gram as _pg
-
-        var = jnp.squeeze(self.variance.value)
         Xs = self._scaled(X)
         X2s = Xs if X2 is None else self._scaled(X2)
-        if _linalg._pallas_active() and Xs.dtype == jnp.float32:
-            from .ops import autotune as _autotune
-
-            # probe-routed (one mechanism with the Cholesky/TRSM routes):
-            # the fused kernel must beat the composite by >15% — the
-            # composite fuses into neighboring elementwise consumers,
-            # which a standalone probe can't see (priced into the
-            # gram hysteresis). GFS_PALLAS_GRAM pins (0/1).
-            if _autotune.gram_choice(
-                    Xs.shape[0], X2s.shape[0], Xs.shape[1],
-                    self._gram_kind, Xs.dtype) is not None:
-                return _pg.stationary_gram(self._gram_kind, Xs, X2s, var)
-        return _pg._gram_reference(self._gram_kind, Xs, X2s, var)
-
-    def K_lower(self, X, presliced=False):
-        """Lower triangle of K(X, X), upper tiles zeroed — for consumers
-        that only read the lower triangle (``ops.linalg.cholesky``, which
-        runs with ``symmetrize_input=False``). On TPU this skips the
-        elementwise kernel map on the strictly-upper tile grid (~45% of
-        the Gram's VPU work); elsewhere it falls back to the full K.
-        """
-        from .ops import autotune as _autotune
-        from .ops import linalg as _linalg
-        from .ops import pallas_gram as _pg
-
-        if (
-            self._gram_kind is None
-            or not _linalg._pallas_active()
-            or not _autotune.use_pallas_gram_lower()
-        ):
-            return self.K(X, presliced=presliced)
-        if not presliced:
-            X, _ = self._slice(X, None)
-        var = jnp.squeeze(self.variance.value)
-        return _pg.stationary_gram_lower(self._gram_kind, self._scaled(X), var)
-
-    def gram_chol_operand(self, X, noise, pad_to, presliced=False):
-        """One-pass (pad_to, pad_to) Cholesky operand ``K(X,X)+noise·I``
-        with a unit-diagonal pad extension; ONLY the lower tile grid is
-        written (see ``ops.pallas_gram.stationary_gram_chol_operand``).
-        Returns None when this kernel has no fused-map code path, so
-        callers fall back to the composite route.
-        """
-        from .ops import pallas_gram as _pg
-
-        if self._gram_kind is None:
-            return None
-        if not presliced:
-            X, _ = self._slice(X, None)
-        var = jnp.squeeze(self.variance.value)
-        return _pg.stationary_gram_chol_operand(
-            self._gram_kind, self._scaled(X), var, noise, pad_to)
+        return _gram(self._gram_kind, Xs, X2s,
+                     jnp.squeeze(self.variance.value))
 
 
 class RBF(Stationary):

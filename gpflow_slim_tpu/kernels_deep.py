@@ -23,8 +23,8 @@ __all__ = ["DeepKernel", "mlp_warp"]
 class DeepKernel(Kernel):
     """``K(x, x') = base.K(f(x), f(x'))`` with trainable warp params.
 
-    ``warp_fn(params, X) -> H`` must be a pure function (e.g. a flax
-    ``Module.apply`` or a hand-rolled MLP); ``warp_params`` is a pytree of
+    ``warp_fn(params, X) -> H`` must be a pure function (e.g. a neural
+    network library's ``apply`` or a hand-rolled MLP); ``warp_params`` is a pytree of
     arrays and becomes part of the model's trainable leaves.
     """
 
@@ -75,7 +75,7 @@ def mlp_warp(key, sizes, activation=jnp.tanh):
     """Hand-rolled MLP warp: returns ``(warp_fn, params)``.
 
     ``sizes = [d_in, h1, …, d_out]``; final layer is linear. Self-contained
-    (no flax dependency), but any flax/haiku apply works equally well.
+    (no neural-network library needed), but any pure ``apply`` works.
     """
     import jax
 

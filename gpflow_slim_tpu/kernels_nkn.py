@@ -5,7 +5,7 @@ An NKN is a small network whose units are kernel *values*: positive-weighted
 linear combinations and products of primitive kernels are again PSD kernels,
 so a stack of ``NKNLinear`` (nonnegative weights) and ``NKNProduct`` layers
 parameterizes a rich, trainably-structured kernel. Everything is batched
-over the primitive axis ((m, N, M) tensors, einsum on the MXU) and trains
+over the primitive axis ((m, N, M) tensors, one einsum) and trains
 end-to-end through ``model.objective()`` like any other kernel.
 """
 

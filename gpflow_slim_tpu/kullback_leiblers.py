@@ -67,8 +67,7 @@ def gauss_kl(q_mu, q_sqrt, K=None):
 
 
 def _batched_solve(Lp, Lq):
-    # (P, M, M) per-output solves — THE workload the batched Pallas TRSM
-    # exists for (ops.linalg routes to it on TPU/f32, vmap'd XLA otherwise)
+    # (P, M, M) per-output solves against the shared prior factor
     from .ops import linalg
 
     Lq = jnp.tril(Lq)

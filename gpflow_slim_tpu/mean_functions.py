@@ -95,7 +95,7 @@ class SwitchedMeanFunction(MeanFunction):
     index), the companion of ``likelihoods.SwitchedLikelihood``: row n gets
     ``meanfunctions[int(X[n, -1])](X[n, :-1])``.
 
-    TPU note: instead of the reference's dynamic_partition/stitch, every
+    Instead of the reference's dynamic_partition/stitch, every
     branch mean is evaluated on the full sliced batch and combined with a
     one-hot mask — static shapes, vmap/grad-safe.
     """

@@ -32,8 +32,18 @@ from ..ops.iterative import batched_cg, pivoted_cholesky, probe_keys, \
 from .model import GPModel
 
 
+# Gram products at full f32 precision: in TF32 (a GPU's default) CG and
+# the Hutchinson trace amplify the product error, and at N=16,384 the
+# hyperparameter gradient moved by ~1e-2 between two matvec orderings.
+_HP = jax.lax.Precision.HIGHEST
+
+
+def _kmv(K, v):
+    return jnp.matmul(K, v, precision=_HP)
+
+
 def _make_A_matvec(K, noise):
-    return lambda v: K @ v + noise * v
+    return lambda v: _kmv(K, v) + noise * v
 
 
 _STREAM_BLOCK = 4096
@@ -52,8 +62,7 @@ def _make_streaming_matvec(kern, X, noise, block=_STREAM_BLOCK):
     """A·v without ever materializing K: the Gram is regenerated one
     ``block``×N row-panel at a time inside a scan (flash-style). O(N·block)
     peak memory; the O(N²·D) Gram flops per matvec are noise next to the
-    elementwise kernel map, which the scan fuses into the panel while it
-    is in registers/VMEM."""
+    elementwise kernel map, which XLA fuses into the panel's producer."""
     N = X.shape[0]
     # small-N guard: padding up to the full 4096 stream block would make
     # every matvec compute a (4096, N) panel — up to ~27× wasted flops at
@@ -65,7 +74,7 @@ def _make_streaming_matvec(kern, X, noise, block=_STREAM_BLOCK):
 
     def mv(v):
         def body(carry, xb):
-            return carry, kern.K(xb, X, presliced=False) @ v
+            return carry, _kmv(kern.K(xb, X, presliced=False), v)
 
         _, panels = jax.lax.scan(body, None, Xb)  # (nb, block[, B])
         out = panels.reshape((nb * block,) + v.shape[1:])[:N]
@@ -141,10 +150,10 @@ def _cg_mll_bwd(num_probes, cg_iters, slq_steps, precond_rank, materialize,
             K = kern.K(X)
             # ½ αᵀ A α  (gradient wrt θ equals ½ αᵀ dA α; the
             # err-dependence of the quad term enters through −yᵀα below)
-            Aalpha = K @ alpha + noise * alpha
+            Aalpha = _kmv(K, alpha) + noise * alpha
             t_quad = 0.5 * jnp.sum(alpha * Aalpha)
             # −½ tr(A⁻¹ dA): Hutchinson with the stored solves
-            AZ = K @ Z + noise * Z
+            AZ = _kmv(K, Z) + noise * Z
             t_trace = -0.5 * num_out * jnp.sum(U * AZ) / num_probes
         else:
             # streaming: the same quadratic forms, one Gram row-panel at a
@@ -162,9 +171,9 @@ def _cg_mll_bwd(num_probes, cg_iters, slq_steps, precond_rank, materialize,
             @jax.checkpoint
             def panel_terms(xb, ab, ub):
                 Kb = kern.K(xb, X, presliced=False)  # (block, N)
-                t_q = 0.5 * jnp.sum(ab * (Kb @ alpha))
+                t_q = 0.5 * jnp.sum(ab * _kmv(Kb, alpha))
                 t_t = (-0.5 * num_out / num_probes
-                       * jnp.sum(ub * (Kb @ Z)))
+                       * jnp.sum(ub * _kmv(Kb, Z)))
                 return t_q + t_t
 
             def body(carry, inp):

@@ -10,9 +10,9 @@ Titsias/Lawrence variational model: q(X) = Π N(x_n; μ_n, diag s_n) with the
 collapsed Titsias bound computed from kernel expectations ψ0/ψ1/ψ2
 (closed-form RBF, quadrature otherwise — ``conditionals.psi_statistics``).
 
-TPU notes: the bound is two tall matmuls (ψ1ᵀ-weighted solves) + an M×M
-Cholesky — MXU-dominated at O(NM² + M³); ψ-statistics are fused elementwise
-maps over (N, M[, M]) tiles.
+Cost: the bound is two tall matmuls (ψ1ᵀ-weighted solves) + an M×M
+Cholesky, O(NM² + M³); ψ-statistics are fused elementwise maps over
+(N, M[, M]) arrays.
 """
 
 from __future__ import annotations
@@ -84,8 +84,7 @@ class GPLVM(GPModel):
     def _K_chol(self):
         X = self.X.value
         N = X.shape[0]
-        # K_lower: the factorization reads only the lower triangle
-        K = self.kern.K_lower(X) + jnp.squeeze(self.likelihood.variance.value) * \
+        K = self.kern.K(X) + jnp.squeeze(self.likelihood.variance.value) * \
             jnp.eye(N, dtype=X.dtype)
         return linalg.cholesky(K)
 

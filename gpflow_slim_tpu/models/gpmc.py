@@ -32,8 +32,7 @@ class GPMC(GPModel):
 
     def build_likelihood(self):
         N = self.X.shape[0]
-        # K_lower: the factorization reads only the lower triangle
-        K = self.kern.K_lower(self.X) + jnp.eye(N, dtype=self.X.dtype) * config.default_jitter()
+        K = self.kern.K(self.X) + jnp.eye(N, dtype=self.X.dtype) * config.default_jitter()
         L = linalg.cholesky(K)
         F = L @ self.V.value + self.mean_function(self.X)
         return jnp.sum(self.likelihood.logp(F, self.Y))

@@ -2,9 +2,8 @@
 
 Conjugate model: log marginal likelihood via one Cholesky of
 ``K(X) + σ² I`` and the MVN logpdf (SURVEY App. A); predictions via
-triangular solves against the stored training data. The Cholesky and solves
-route through ``ops.linalg`` so the Pallas blocked kernels can be swapped in
-behind a config flag.
+triangular solves against the stored training data, all through
+``ops.linalg``.
 """
 
 from __future__ import annotations
@@ -21,30 +20,22 @@ class GPR(GPModel):
         likelihood = Gaussian(name=f"{name}/likelihood")
         super().__init__(X, Y, kern, likelihood, mean_function, name=name)
 
-    def _K_chol(self):
-        # K_lower: the factorization (symmetrize_input=False) reads only
-        # the lower triangle, so stationary kernels skip the elementwise
-        # map on the strictly-upper tile grid (ops/pallas_gram.py)
+    def _K_noisy(self):
         N = self.X.shape[0]
-        K = self.kern.K_lower(self.X) + jnp.squeeze(
+        return self.kern.K(self.X) + jnp.squeeze(
             self.likelihood.variance.value
         ) * jnp.eye(N, dtype=self.X.dtype)
-        return linalg.cholesky(K)
+
+    def _K_chol(self):
+        return linalg.cholesky(self._K_noisy())
 
     def build_likelihood(self):
-        """log p(Y | θ) = MVN(Y; m(X), K + σ²I), summed over output columns.
-
-        Routed through ``ops.linalg.gpr_chol_terms`` — on the Pallas
-        route the whole pipeline is the one-pass gram+noise+pad operand
-        kernel feeding the fused potrf+potrs factorization, with no
-        other N²-scale passes (same math as
-        ``densities.multivariate_normal``; SURVEY App. A).
+        """log p(Y | θ) = MVN(Y; m(X), K + σ²I), summed over output columns
+        (same math as ``densities.multivariate_normal``; SURVEY App. A).
         """
         N = self.X.shape[0]
         d = self.Y - self.mean_function(self.X)
-        noise = jnp.squeeze(self.likelihood.variance.value)
-        half_logdet, quad = linalg.gpr_chol_terms(
-            self.kern, self.X, noise, d)
+        half_logdet, quad = linalg.chol_logdet_quad(self._K_noisy(), d)
         num_col = d.shape[1] if d.ndim > 1 else 1
         return (
             -0.5 * N * num_col * jnp.log(2.0 * jnp.pi)

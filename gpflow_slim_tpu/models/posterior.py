@@ -3,7 +3,7 @@
 The reference rebuilds the O(N³) factorization inside every prediction
 graph. For production serving we precompute the data-dependent factors once
 (``model.posterior()``) and every subsequent ``predict_*`` is O(N·N*) —
-MXU matmuls + triangular solves only. Posterior objects are Modules
+matmuls + triangular solves only. Posterior objects are Modules
 (pytrees), so they jit/vmap/shard like everything else and can be
 checkpointed with ``utils.checkpoint`` for a serving process.
 """

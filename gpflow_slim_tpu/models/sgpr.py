@@ -3,7 +3,7 @@
 SGPR is the Titsias-2009 collapsed variational bound in the
 ``A = L⁻¹Kuf/σ, B = I + AAᵀ`` factorization (SURVEY App. A); GPRFITC is the
 Snelson–Ghahramani FITC approximation with the diagonal correction
-``ν = diag(Kff − Qff) + σ²``. Both O(NM²), MXU-dominated (tall matmuls).
+``ν = diag(Kff − Qff) + σ²``. Both O(NM²), dominated by tall matmuls.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Hensman et al. 2013/2015: trainable q(u) = N(q_mu, q_sqrt q_sqrtᵀ) over M
 inducing outputs, whitened by default. ELBO = scale·Σ variational_expectations
 − KL (SURVEY App. A). The reference feeds minibatches through placeholders;
-TPU-native redesign: data lives device-resident, ``build_likelihood_batch``
+Here data lives device-resident, ``build_likelihood_batch``
 takes an explicit batch (or indices gathered inside jit) with the N/B scale —
 the data-parallel path shards the batch axis via shard_map (parallel.dp).
 """

@@ -37,8 +37,7 @@ class VGP(GPModel):
         N = self.num_data
         kl = gauss_kl(self.q_mu.value, self.q_sqrt.value, None)
 
-        # K_lower: the factorization reads only the lower triangle
-        K = self.kern.K_lower(self.X) + jnp.eye(N, dtype=self.X.dtype) * config.default_jitter()
+        K = self.kern.K(self.X) + jnp.eye(N, dtype=self.X.dtype) * config.default_jitter()
         L = linalg.cholesky(K)
         fmean = L @ self.q_mu.value + self.mean_function(self.X)  # (N, P)
 

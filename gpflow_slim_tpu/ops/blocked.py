@@ -1,7 +1,6 @@
 """Blocked (right-looking) Cholesky and triangular solves in pure lax ops.
 
-These are the XLA-level blocked algorithms that (a) serve as the
-shape-static template for the Pallas kernels, and (b) run **sharded**: all
+These are XLA-level blocked algorithms that run **sharded**: all
 per-step operands are full-height slabs with static shapes, so under a row
 sharding XLA's SPMD partitioner distributes the trailing updates (the
 distributed block-Cholesky path of BASELINE config #5 — see
@@ -9,8 +8,8 @@ distributed block-Cholesky path of BASELINE config #5 — see
 ``tf.linalg.cholesky`` (single device).
 
 Cost note: full-height slab updates do ~3× the minimal Cholesky flops but
-every flop is an MXU matmul; the Pallas kernel (ops.pallas_cholesky)
-restores the triangular flop count on one chip.
+every flop is a matmul; on one device ``ops.linalg.cholesky`` (cuSOLVER
+potrf on a GPU) does the triangular flop count.
 """
 
 from __future__ import annotations
@@ -21,6 +20,11 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import cholesky as _chol
 from jax.scipy.linalg import solve_triangular as _st
+
+# The slab updates and their adjoints are cancellation-critical: with f32
+# products in TF32 (a GPU's default) the distributed GPR gradient left f64
+# by ~4e-2 at N=16,384, so every matmul here runs at full f32 precision.
+_HP = jax.lax.Precision.HIGHEST
 
 __all__ = ["blocked_cholesky", "blocked_solve_lower", "blocked_solve_upper",
            "pad_to_block"]
@@ -80,7 +84,7 @@ def _blocked_cholesky_impl(K, block_size: int = 256):
         L = jax.lax.dynamic_update_slice(L, newcol, (0, off))
         # trailing SYRK: W has zero rows above off+bs, so only the trailing
         # submatrix is touched
-        L = L - W @ W.T
+        L = L - jnp.matmul(W, W.T, precision=_HP)
         return L
 
     L = jax.lax.fori_loop(0, nb, body, K)
@@ -95,7 +99,8 @@ def _chol_fwd(K, block_size):
 def _chol_bwd(block_size, L, g):
     # Murray (2016): K̄ = ½ sym(L⁻ᵀ (P + Pᵀ) L⁻¹), P = Φ(Lᵀ L̄)
     Lbar = jnp.tril(g)
-    P = jnp.tril(L.T @ Lbar) - 0.5 * jnp.diag(jnp.diagonal(L.T @ Lbar))
+    LtLbar = jnp.matmul(L.T, Lbar, precision=_HP)
+    P = jnp.tril(LtLbar) - 0.5 * jnp.diag(jnp.diagonal(LtLbar))
     PPt = P + P.T
     tmp = _solve_upper_impl(L.T, PPt, block_size)  # L⁻ᵀ (P+Pᵀ)
     S = _solve_upper_impl(L.T, tmp.T, block_size).T  # … L⁻¹
@@ -133,7 +138,7 @@ def _solve_lower_impl(L, B, block_size: int = 256):
         Bw = jax.lax.dynamic_update_slice(Bw, Xk, (off, 0))
         below = rows >= off + bs
         W = jnp.where(below, Lcol, 0.0)
-        Bw = Bw - W @ Xk
+        Bw = Bw - jnp.matmul(W, Xk, precision=_HP)
         return Bw
 
     X = jax.lax.fori_loop(0, nb, body, B2)
@@ -150,7 +155,7 @@ def _sl_bwd(block_size, res, g):
     gB = _solve_upper_impl(L.T, g, block_size)  # L⁻ᵀ g
     X2 = X if X.ndim == 2 else X[:, None]
     g2 = gB if gB.ndim == 2 else gB[:, None]
-    gL = -jnp.tril(g2 @ X2.T)
+    gL = -jnp.tril(jnp.matmul(g2, X2.T, precision=_HP))
     return gL, gB
 
 
@@ -176,7 +181,7 @@ def _su_bwd(block_size, res, g):
     gB = _solve_lower_impl(U.T, g, block_size)  # U⁻ᵀ g
     X2 = X if X.ndim == 2 else X[:, None]
     g2 = gB if gB.ndim == 2 else gB[:, None]
-    gU = -jnp.triu(g2 @ X2.T)
+    gU = -jnp.triu(jnp.matmul(g2, X2.T, precision=_HP))
     return gU, gB
 
 
@@ -200,7 +205,7 @@ def _solve_upper_impl(U, B, block_size: int = 256):
         Bw = jax.lax.dynamic_update_slice(Bw, Xk, (off, 0))
         above = rows < off
         W = jnp.where(above, Ucol, 0.0)
-        Bw = Bw - W @ Xk
+        Bw = Bw - jnp.matmul(W, Xk, precision=_HP)
         return Bw
 
     X = jax.lax.fori_loop(0, nb, body, B2)

@@ -4,11 +4,11 @@ Techniques from the retrieved scaling literature (PAPERS.md): GPyTorch-style
 blackbox matrix-matrix inference (CG solves + stochastic Lanczos quadrature
 logdet, Gardner et al. 2018) with partial pivoted-Cholesky preconditioning
 (Gardner et al. 2021). These give an O(N²·iters) marginal-likelihood path —
-vs O(N³) Cholesky — whose matvecs are pure MXU GEMMs and compose with the
+vs O(N³) Cholesky — whose matvecs are pure GEMMs and compose with the
 ring Gram matvec (parallel.ring_gram_matvec) for sharded N.
 
 All loops are ``lax.fori_loop`` / ``lax.scan`` with static bounds — one XLA
-program, TPU-friendly.
+program.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def batched_cg(matvec: Callable, B, max_iters: int = 100, tol: float = 1e-6,
     """Solve A X = B for PSD A with (preconditioned) conjugate gradients.
 
     B: (N, P) — all right-hand sides iterate together (matrix-matrix
-    products on the MXU, the BBMM trick). Runs a fixed ``max_iters`` with
+    products, the BBMM trick). Runs a fixed ``max_iters`` with
     convergence masking (static shapes; converged columns stop updating).
     Returns (X, residual_norms (P,)).
     """
@@ -186,8 +186,8 @@ def probe_keys(*params):
         for leaf in jax.tree_util.tree_leaves(p):
             x = jax.lax.stop_gradient(jnp.ravel(jnp.asarray(leaf)))
             if x.dtype == jnp.float64:
-                # u64 bitcast is unsupported under TPU's x64 rewrite, so
-                # split into an exact f32 head plus the f32-rounded residual
+                # hash without a u64 bitcast (not every backend lowers
+                # one): split into an exact f32 head plus the f32-rounded residual
                 # (≈48 mantissa bits total — resolves steps far below f32
                 # resolution) and hash both halves
                 hi = x.astype(jnp.float32)

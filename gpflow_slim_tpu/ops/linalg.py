@@ -1,12 +1,10 @@
-"""Switchable dense linear algebra (the reference's tf.linalg role).
+"""Dense linear algebra (the reference's tf.linalg role).
 
-The reference delegates Cholesky/TRSM to TF's C++ kernels
-(Eigen LLT / cuSOLVER). Here the correctness path is XLA's native
-``cholesky``/``triangular_solve`` HLOs, and the performance path is the
-Pallas (Mosaic) blocked kernels in ``ops.pallas_cholesky`` /
-``ops.pallas_trsm``, selected by ``config.settings().use_pallas`` on TPU.
-JAX supplies JVP/VJP rules for the XLA path; the Pallas path carries
-``custom_vjp`` wrappers validated against it.
+The reference delegates Cholesky/TRSM to TF's C++ kernels (Eigen LLT on the
+CPU, cuSOLVER potrf / cuBLAS trsm on a GPU). Here every function is a thin
+layer over XLA's ``cholesky`` / ``triangular_solve`` HLOs, which XLA lowers
+to the same cuSOLVER and cuBLAS calls on a GPU and to LAPACK on the CPU.
+JAX supplies the JVP/VJP rules.
 """
 
 from __future__ import annotations
@@ -14,214 +12,45 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax.lax import linalg as _lax_linalg
-from jax.scipy.linalg import solve_triangular as _xla_solve_triangular
+from jax.scipy.linalg import solve_triangular as _solve_triangular
 
 from .. import config
-
-
-def _xla_cholesky(K, lower=True):
-    # symmetrize_input=False: jax.scipy's default prepends an (K + Kᵀ)/2
-    # pass — an extra O(N²) HBM read+write per factorization. Every
-    # caller in this library constructs K symmetrically (Gram expansions,
-    # A·Aᵀ products, +diag), or passes a lower-triangle-only Gram whose
-    # upper part is deliberately unwritten — in both cases the lower
-    # triangle alone is the contract, which is exactly what the
-    # unsymmetrized Cholesky reads. (Callers with a possibly-asymmetric
-    # matrix should symmetrize explicitly before calling.)
-    assert lower, "upper Cholesky not used in this library"
-    return _lax_linalg.cholesky(K, symmetrize_input=False)
-
-
-def _pallas_active() -> bool:
-    if not config.settings().use_pallas:
-        return False
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover
-        return False
-
-
-# Below this the whole factorization is one or two blocks and XLA's native
-# Cholesky wins at every measured session (docs/PERFORMANCE.md) — skip the
-# probe entirely.
-_PALLAS_CHOL_MIN_N = 2048
 
 
 def cholesky(K):
     """Lower Cholesky factor of an SPD matrix.
 
-    Routing is decided per shape by MEASUREMENT (ops.autotune): XLA vs the
-    compilable Pallas block sizes are timed at the exact (N, dtype) on
-    first use, and the winner is cached — static thresholds proved
-    untrustworthy across sessions of this drifting remote runtime
-    (round-3 verdict #1). ``GFS_PALLAS_CHOL_BS`` pins (0 = XLA);
-    ``GFS_AUTOTUNE=0`` uses the recorded static table instead of probing.
+    ``symmetrize_input=False``: jax.scipy's default prepends a (K + Kᵀ)/2
+    pass, an extra O(N²) read and write per factorization. Every caller in
+    this library constructs K symmetrically (Gram expansions, A·Aᵀ
+    products, +diag), so the lower triangle alone is the contract.
+    Callers with a possibly-asymmetric matrix symmetrize it first.
     """
-    if (
-        _pallas_active()
-        and K.ndim == 2
-        and K.dtype == jnp.float32
-        and K.shape[0] >= _PALLAS_CHOL_MIN_N
-    ):
-        from . import autotune, pallas_cholesky
-
-        choice = autotune.chol_choice(K.shape[0], K.dtype)
-        if choice is not None:
-            bs, syrk = choice
-            return pallas_cholesky.cholesky(K, bs, syrk)
-    return _xla_cholesky(K, lower=True)
-
-
-def _pallas_logdet_quad(K, D, bs, syrk):
-    """Padded Pallas pipeline for ``chol_logdet_quad`` (also the exact
-    computation the autotune probe times for each candidate): one fused
-    pad + the fused potrf+potrs kernel (``cholesky_solve_logdet``) — the
-    triangular solve and the logdet accumulation happen INSIDE the
-    factorization, so nothing post-kernel touches the N² factor."""
-    from . import pallas_cholesky
-
-    N = K.shape[0]
-    rem = (-N) % bs
-    if rem:
-        zero = jnp.zeros((), K.dtype)
-        Kp = jax.lax.pad(K, zero, [(0, rem, 0), (0, rem, 0)])
-        idx = jnp.arange(N, N + rem)
-        Kp = Kp.at[idx, idx].set(1.0)
-        Dp = jax.lax.pad(D, zero, [(0, rem, 0), (0, 0, 0)])
-    else:
-        Kp, Dp = K, D
-    return pallas_cholesky.cholesky_solve_logdet(Kp, Dp, bs, syrk)
-
-
-def _xla_logdet_quad(K, D):
-    L = _xla_cholesky(K, lower=True)
-    half_logdet = jnp.sum(jnp.log(jnp.diagonal(L)))
-    alpha = _xla_solve_triangular(L, D, lower=True)
-    return half_logdet, jnp.sum(jnp.square(alpha))
+    return _lax_linalg.cholesky(K, symmetrize_input=False)
 
 
 def chol_logdet_quad(K, D):
-    """Fused routed ``(half_logdet, quad)`` of the MVN objective core:
+    """``(half_logdet, quad)`` of the MVN objective core:
     ``half_logdet = Σ log diag chol(K)``, ``quad = ‖chol(K)⁻¹ D‖²_F``.
 
-    This is what exact-GPR's marginal likelihood actually consumes — NOT
-    the masked factor. On the Pallas route it exploits that Cholesky is
-    leading-principal-nested: K is padded to the block multiple with a
-    unit-diagonal extension (one fused ``lax.pad`` + a rem-element
-    scatter), the kernel factors in place, and the result is consumed
-    WITHOUT the N² slice+tril pass (~2 ms at N=10k, measured
-    2026-08-21): the logdet reads ``diagonal(Lp)[:N]`` (a gather) and
-    the triangular solve runs on the padded system, where the padded
-    RHS rows produce exactly-zero alpha rows (L[pad, :N] = 0 by
-    construction), so ``Σ alpha²`` needs no slicing either.
-
-    The autotune probe times THIS pipeline (per candidate, vs the XLA
-    pipeline) — probing the masked standalone factorization instead
-    mis-routed the objective by ~the mask/pad cost (seen 2026-08-21).
+    This is what exact-GPR's marginal likelihood consumes (SURVEY App. A).
     """
-    N = K.shape[0]
     if D.ndim == 1:
         D = D[:, None]
-    if (
-        _pallas_active()
-        and K.ndim == 2
-        and K.dtype == jnp.float32
-        and N >= _PALLAS_CHOL_MIN_N
-    ):
-        from . import autotune
-
-        choice = autotune.chol_choice(N, K.dtype)
-        if choice is not None:
-            bs, syrk = choice
-            return _pallas_logdet_quad(K, D, bs, syrk)
     L = cholesky(K)
     half_logdet = jnp.sum(jnp.log(jnp.diagonal(L)))
     alpha = solve_lower(L, D)
     return half_logdet, jnp.sum(jnp.square(alpha))
 
 
-def gpr_chol_terms(kern, X, noise, D):
-    """(half_logdet, quad) for ``K = kern.K(X) + noise·I`` — the exact-GPR
-    marginal-likelihood core, with the fully-fused Pallas fast path.
-
-    When the autotune probe routes this shape to the Pallas Cholesky AND
-    the kernel has a fused-map code path, the WHOLE pipeline is two
-    Pallas calls and nothing else at N² scale: the one-pass lower-tile
-    gram+noise+pad operand (``kern.gram_chol_operand``) feeding the fused
-    potrf+potrs (``cholesky_solve_logdet``). Otherwise: the composite
-    gram + ``chol_logdet_quad`` (which itself routes the factorization).
-    """
-    N = X.shape[0]
-    if D.ndim == 1:
-        D = D[:, None]
-    if (
-        _pallas_active()
-        and jnp.asarray(X).dtype == jnp.float32
-        and N >= _PALLAS_CHOL_MIN_N
-        and getattr(kern, "_gram_kind", None) is not None
-        and hasattr(kern, "gram_chol_operand")
-    ):
-        from . import autotune
-
-        choice = autotune.chol_choice(N, jnp.float32)
-        if choice is not None:
-            bs, syrk = choice
-            pad_to = N + ((-N) % bs)
-            Kp = kern.gram_chol_operand(X, noise, pad_to)
-            if Kp is not None:
-                from . import pallas_cholesky
-
-                zero = jnp.zeros((), Kp.dtype)
-                Dp = jax.lax.pad(
-                    D.astype(Kp.dtype), zero,
-                    [(0, pad_to - N, 0), (0, 0, 0)])
-                return pallas_cholesky.cholesky_solve_logdet(
-                    Kp, Dp, bs, syrk)
-    K = kern.K_lower(X) + noise * jnp.eye(N, dtype=jnp.asarray(X).dtype)
-    return chol_logdet_quad(K, D)
-
-
-def _wide_pallas_ok(T, B):
-    """Probe-routed wide-TRSM gate (one mechanism with the Cholesky and
-    gram probes — ops.autotune). The only static checks left are
-    plausibility gates: f32 (the Mosaic kernels are f32-only; x64 parity
-    mode must not fail at compile time) and 2-D. The old measured-once
-    VMEM-footprint constant is gone — a candidate that overflows scoped
-    VMEM fails during the probe and is skipped (compile/runtime-reject
-    fallback); the <128-column MXU-tile floor lives in the probe module
-    as its probe-skip fast path."""
-    if not (
-        _pallas_active()
-        and B.ndim == 2
-        and T.dtype == jnp.float32
-        and B.dtype == jnp.float32
-    ):
-        return False
-    from . import autotune
-
-    return autotune.trsm_wide_choice(
-        T.shape[0], B.shape[1], B.dtype) is not None
-
-
 def solve_lower(L, B):
     """Solve L x = B with L lower-triangular."""
-    # thin RHS (e.g. the (N, P) targets of GPR, P small) can't feed the
-    # MXU tiles the blocked kernel is built around — XLA's substitution
-    # solve wins there; route Pallas only for wide RHS panels
-    if _wide_pallas_ok(L, B):
-        from . import pallas_trsm
-
-        return pallas_trsm.solve_lower(L, B)
-    return _xla_solve_triangular(L, B, lower=True)
+    return _solve_triangular(L, B, lower=True)
 
 
 def solve_upper(U, B):
     """Solve U x = B with U upper-triangular."""
-    if _wide_pallas_ok(U, B):
-        from . import pallas_trsm
-
-        return pallas_trsm.solve_upper(U, B)
-    return _xla_solve_triangular(U, B, lower=False)
+    return _solve_triangular(U, B, lower=False)
 
 
 def cho_solve_lower(L, B):
@@ -229,52 +58,15 @@ def cho_solve_lower(L, B):
     return solve_upper(L.T, solve_lower(L, B))
 
 
-def _batched_pallas_ok(L, B):
-    """Probe-routed batched-TRSM gate (ops.autotune.trsm_batched_choice):
-    pin -> cache -> probe, the same mechanism as the Cholesky/gram/wide
-    routes. 2026-08-20 static measurements (grid kernel never beating
-    vmapped XLA at gauss_kl shapes, runtime VMEM overflow at M=1024) are
-    now rediscovered by the probe per shape: losing candidates are not
-    chosen, overflowing ones fail during the probe and are skipped."""
-    if not (
-        _pallas_active()
-        and L.ndim == 3
-        and B.ndim == 3
-        and L.dtype == jnp.float32
-        and B.dtype == jnp.float32
-        and L.shape[0] == B.shape[0]
-        and L.shape[2] == B.shape[1]
-    ):
-        return False
-    from . import autotune
-
-    return autotune.trsm_batched_choice(
-        L.shape[0], L.shape[1], L.dtype) is not None
-
-
 def batched_solve_lower(L, B):
     """Solve L[p] X = B[p] over a leading batch dim (the (P, M, M)
-    variational q_sqrt / per-output solves). Pallas grid kernel on TPU
-    (one whole triangle per VMEM tile, inverted once, applied as a GEMM);
-    vmap'd XLA substitution otherwise."""
-    if _batched_pallas_ok(L, B):
-        from . import pallas_trsm
-
-        return pallas_trsm.batched_solve_lower(L, B)
-    return jax.vmap(
-        lambda l, b: _xla_solve_triangular(l, b, lower=True)
-    )(L, B)
+    variational q_sqrt / per-output solves)."""
+    return jax.vmap(solve_lower)(L, B)
 
 
 def batched_solve_upper(U, B):
     """Solve U[p] X = B[p] over a leading batch dim (upper triangles)."""
-    if _batched_pallas_ok(U, B):
-        from . import pallas_trsm
-
-        return pallas_trsm.batched_solve_upper(U, B)
-    return jax.vmap(
-        lambda u, b: _xla_solve_triangular(u, b, lower=False)
-    )(U, B)
+    return jax.vmap(solve_upper)(U, B)
 
 
 def batched_cho_solve_lower(L, B):
@@ -290,7 +82,7 @@ def robust_cholesky(K, max_tries: int = 5):
     Tries ``chol(K + jitter·scale·I)`` with jitter growing ×10 per attempt
     (starting from the dtype-aware default) until the factor is finite —
     jittable via ``lax.while_loop``. Returns ``(L, jitter_used)``. The f32
-    TPU safety net for ill-conditioned kernels; exact parity paths should
+    safety net for ill-conditioned kernels; exact parity paths should
     call ``cholesky`` directly.
     """
     N = K.shape[0]

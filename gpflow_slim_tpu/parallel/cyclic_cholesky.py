@@ -4,9 +4,8 @@ The ScaLAPACK-style 1-D block-cyclic right-looking algorithm, written
 directly in shard_map (SURVEY §7.2 hard-part #2): block-column j lives on
 device j mod P; at step k the owner factors its panel (diagonal block
 Cholesky + full-height TRSM-as-GEMM), the panel is **broadcast with one
-masked psum over the mesh axis** (the panel-broadcast collective that rides
-ICI on hardware), and every device applies the SYRK trailing update to the
-block columns it owns — so the O(N³) update flops are evenly spread and
+masked psum over the mesh axis**, and every device applies the SYRK
+trailing update to the block columns it owns — so the O(N³) update flops are evenly spread and
 each step moves only one N×bs panel over the interconnect (O(N²) total
 communication, the 1-D-optimal volume; the slab-SPMD path in
 ``dist_linalg`` leaves the same schedule to XLA's partitioner).
@@ -17,18 +16,13 @@ block-cyclic permutation is applied host-side around the shard_map call.
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-
-_HP = jax.lax.Precision.HIGHEST  # trailing updates are cancellation-critical
 import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.pallas_cholesky import _vmem_cholesky_small as _small_chol
-from ..ops.pallas_cholesky import _vmem_tri_inverse_small as _small_inv
+_HP = jax.lax.Precision.HIGHEST  # trailing updates are cancellation-critical
 
 __all__ = ["cyclic_cholesky"]
 
@@ -94,11 +88,13 @@ def cyclic_cholesky(K, mesh: Mesh, axis: str, block_size: int = 128,
             is_owner = me == owner
             safe = jnp.eye(bs, dtype=K.dtype)
             diag = jnp.where(is_owner, diag, safe)
-            Ld = _small_chol(diag)
-            Zd = _small_inv(Ld)
+            Ld = jnp.tril(
+                jax.lax.linalg.cholesky(diag, symmetrize_input=False))
             below = rows_idx >= (k + 1) * bs
-            W = jnp.matmul(jnp.where(below, panel, 0.0), Zd.T,
-                           precision=_HP)  # (N, bs) sub-diag part
+            # (N, bs) sub-diagonal part: W Ldᵀ = panel
+            W = jax.lax.linalg.triangular_solve(
+                Ld, jnp.where(below, panel, 0.0), left_side=False,
+                lower=True, transpose_a=True)
             Ld_full = jax.lax.dynamic_update_slice(
                 jnp.zeros((N, bs), K.dtype), Ld, (i32(k * bs), i32(0))
             )

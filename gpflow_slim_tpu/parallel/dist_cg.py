@@ -5,7 +5,7 @@ Combines the ring Gram matvec (``ring_gram.ring_gram_matvec`` — K is never
 materialized, each chip streams its block row against ppermute-rotated
 shards) with the BBMM CG/SLQ estimator of ``models.cg_gpr``: CG solves and
 Lanczos run at the jit level on row-sharded global arrays, so their inner
-reductions compile to `psum`s over ICI, and the custom-VJP backward
+reductions compile to `psum`s, and the custom-VJP backward
 differentiates only ring-matvec quadratic forms (stop-gradded solves).
 
 This is the N-beyond-everything path: per-chip memory is O(N·D/P + N·B/P)

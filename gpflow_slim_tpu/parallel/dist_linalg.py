@@ -1,12 +1,12 @@
 """Distributed dense linear algebra + the multi-host exact-GPR path.
 
-BASELINE config #5: exact GPR at N beyond single-chip HBM. The pieces:
+BASELINE config #5: exact GPR at N beyond one device's memory. The pieces:
 
   * ``distributed_cholesky`` / ``distributed_solve_lower`` — the blocked
     slab algorithms of ``ops.blocked`` run under row sharding; every
     per-step operand is a full-height (N, bs) slab, so XLA's SPMD
     partitioner turns the TRSM panel broadcast and SYRK trailing update
-    into ICI collectives (the panel's bs×bs diagonal block is gathered,
+    into collectives (the panel's bs×bs diagonal block is gathered,
     everything else stays local to its row shard).
   * ``distributed_gpr_mll`` — ring-Gram (never materializes K unsharded)
     → sharded blocked Cholesky → sharded solves → scalar reduction. Fully

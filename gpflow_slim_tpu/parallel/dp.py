@@ -1,11 +1,11 @@
 """Data-parallel SVGP training (SURVEY §2.2 row "DP").
 
-The reference minibatches through feed_dict on one device. TPU-native: the
+The reference minibatches through feed_dict on one device. Here the
 minibatch axis is sharded over the ``data`` mesh axis. Two equivalent paths:
 
   * ``dp_value_and_grad`` — explicit ``shard_map``: each device computes the
     variational-expectation sum on its batch shard, ``psum``s it, and the
-    (replicated) KL is added once; gradients therefore allreduce over ICI.
+    (replicated) KL is added once; gradients therefore allreduce over the interconnect.
   * ``fit_svgp`` — the pjit path: batch arrays carry a
     ``NamedSharding(mesh, P("data"))``, params are replicated, and XLA's
     SPMD partitioner inserts the same collectives automatically. This is
@@ -52,7 +52,7 @@ def dp_value_and_grad(model, Xb, Yb, mesh: Mesh, axis: str = "data"):
 
     def per_device(m, xb, yb):
         # local loss = this shard's share; global loss/grad via psum — the
-        # gradient allreduce is THE data-parallel collective (rides ICI)
+        # gradient allreduce is THE data-parallel collective
         def local_loss(mm):
             # loss = −(ELBO + log_prior) = −scale·Σve + KL − log_prior,
             # with the replicated KL/prior terms divided across devices so

@@ -57,7 +57,10 @@ __all__ = [
     "make_grid_gpr_loss",
 ]
 
-_HP = jax.lax.Precision.HIGHEST  # see PERFORMANCE.md precision policy
+# every matmul here runs at full f32 precision: the factorization's updates
+# are cancellation-critical, and a one-hot selection matmul in TF32 rounds
+# what it selects to 10 bits
+_HP = jax.lax.Precision.HIGHEST
 
 
 class GridLayout:
@@ -174,14 +177,15 @@ def _factor_local(lo: GridLayout):
                 is_diag_row
                 * (pos_in_block[:, None] == jnp.arange(bs)[None, :])
             ).astype(Ka.dtype)
-            diag = jax.lax.psum(onehot.T @ colblk, r_ax)
+            diag = jax.lax.psum(
+                jnp.matmul(onehot.T, colblk, precision=_HP), r_ax)
 
             Lkk = jnp.linalg.cholesky(diag)
             Zinv = jax.scipy.linalg.solve_triangular(Lkk, eye, lower=True)
 
             below = (row_ids > k)[:, None]
             trsm = jnp.matmul(colblk, Zinv.T, precision=_HP)
-            Lkk_rows = onehot @ Lkk
+            Lkk_rows = jnp.matmul(onehot, Lkk, precision=_HP)
             newcol = jnp.where(below, trsm,
                                jnp.where(is_diag_row, Lkk_rows, colblk))
             Ka = jnp.where(

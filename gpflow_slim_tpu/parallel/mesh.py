@@ -20,9 +20,9 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
     """Multi-host bring-up (SURVEY §2.2 collective-backend row).
 
-    Thin wrapper over ``jax.distributed.initialize``: on TPU pods the
-    runtime discovers everything from the environment, so a bare call is
-    usually enough; arguments are for manual/CPU clusters. After this,
+    Thin wrapper over ``jax.distributed.initialize``. Where no cluster
+    manager describes the job, pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id`` explicitly. After this,
     ``jax.devices()`` spans the slice and ``make_mesh`` lays global meshes.
     Gang-scheduled semantics: no elasticity — recover by restarting from a
     checkpoint (utils.checkpoint).

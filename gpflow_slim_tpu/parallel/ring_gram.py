@@ -78,7 +78,9 @@ def ring_gram_matvec(kern, X, v, mesh: Mesh, axis: str = "rows",
         def body(s, carry):
             acc, Xrot, vrot = carry
             block = kern.K(Xl, Xrot)  # (n_loc, n_loc)
-            acc = acc + block @ vrot
+            # full f32 precision: see models/cg_gpr.py's _HP
+            acc = acc + jnp.matmul(block, vrot,
+                                   precision=jax.lax.Precision.HIGHEST)
             Xrot = jax.lax.ppermute(Xrot, axis, perm)
             vrot = jax.lax.ppermute(vrot, axis, perm)
             return (acc, Xrot, vrot)

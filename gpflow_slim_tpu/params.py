@@ -8,7 +8,7 @@ under the caller's name scope and exposes ``constrained_tensor`` /
 the host framework*: kernels/models must be usable inside arbitrary user
 code with no module-system ceremony.
 
-TPU-native redesign: a ``Param`` is a pytree node whose single dynamic leaf
+Pytree redesign: a ``Param`` is a pytree node whose single dynamic leaf
 is the **unconstrained** array; transform/prior/trainable/name are static
 metadata. A ``Module`` is any object whose subclass is auto-registered as a
 pytree: its array-like fields (Params, sub-Modules, jax/numpy arrays, and

@@ -10,7 +10,7 @@ with θ the natural parameters ``(S⁻¹m, −½S⁻¹)`` and η the expectation
 parameters ``(m, S + mmᵀ)``. ``∂L/∂η`` comes from reverse-mode through
 ``expectation → ξ``; the pushforward ``(∂ξ/∂θ)·v`` is one ``jax.jvp``
 through ``natural → ξ`` — no explicit Fisher matrix ever formed, everything
-batched over output dims on the MXU.
+batched over output dims as matrix products.
 
 The canonical SVGP loop alternates ``natgrad(q_mu, q_sqrt)`` with Adam on
 the hyperparameters (``fit_svgp_natgrad``).

@@ -2,7 +2,7 @@
 
 The reference has no training layer — users run
 ``tf.train.AdamOptimizer(...).minimize(model.objective)`` in a ``sess.run``
-loop (SURVEY §1 L6). The TPU-native equivalent: the model is a pytree, the
+loop (SURVEY §1 L6). The JAX equivalent: the model is a pytree, the
 loss is ``model.objective()``, and one jitted step fuses
 forward+backward+update into a single XLA executable. ``lax.scan`` over
 steps keeps the whole optimization on-device (no per-step host round trip —

@@ -2,9 +2,9 @@
 
 The reference gets checkpointing for free because every Param is a named
 ``tf.get_variable`` restorable by ``tf.train.Saver``. The pytree analog:
-models/optimizer states are ordinary pytrees, serialized with flax's
-msgpack (arrays by value, structure from a template). Recovery story for
-gang-scheduled TPU jobs = restart from the last checkpoint.
+models/optimizer states are ordinary pytrees, saved as their leaf list in
+one ``.npz`` archive (arrays by value, structure from a template on load).
+Recovery story for a preempted job = restart from the last checkpoint.
 
 ``save_checkpoint(path, tree)`` / ``load_checkpoint(path, template)`` for
 any pytree (model, ``(model, opt_state, step)``, HMC/NUTS chain state…).
@@ -17,26 +17,24 @@ import os
 
 import jax
 import numpy as np
-from flax import serialization
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint"]
 
 
 def save_checkpoint(path: str, tree, step: int | None = None) -> str:
-    """Serialize a pytree to ``path`` (msgpack). Returns the final path.
+    """Save a pytree's leaves to ``path`` (npz). Returns the final path.
 
     With ``step``, writes ``{path}-{step}`` (keeps a numbered history).
     """
     if step is not None:
         path = f"{path}-{step}"
-    # custom pytree nodes (Module/Param) are not msgpack-able; serialize the
-    # leaf list — the template supplies the structure on load
+    # custom pytree nodes (Module/Param) carry static metadata that is not
+    # array data; save the leaf list — the template supplies the structure
     leaves = jax.tree_util.tree_leaves(jax.device_get(tree))
-    data = serialization.to_bytes(leaves)
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(tmp, "wb") as f:
-        f.write(data)
+        np.savez(f, *[np.asarray(l) for l in leaves])
     os.replace(tmp, path)
     return path
 
@@ -45,12 +43,24 @@ def load_checkpoint(path: str, template):
     """Restore a pytree from ``path`` using ``template`` for structure.
 
     The template supplies static metadata (transforms, priors, shapes);
-    array leaves are replaced by the stored values.
+    array leaves are replaced by the stored values. Raises ``ValueError``
+    when the file's leaf count or a leaf's shape disagrees with the
+    template.
     """
-    with open(path, "rb") as f:
-        data = f.read()
     t_leaves, treedef = jax.tree_util.tree_flatten(template)
-    leaves = serialization.from_bytes(t_leaves, data)
+    with np.load(path, allow_pickle=False) as data:
+        if len(data.files) != len(t_leaves):
+            raise ValueError(
+                f"checkpoint {path!r} holds {len(data.files)} leaves, the "
+                f"template has {len(t_leaves)}"
+            )
+        leaves = [data[f"arr_{i}"] for i in range(len(t_leaves))]
+    for i, (t, v) in enumerate(zip(t_leaves, leaves)):
+        if np.shape(t) != v.shape:
+            raise ValueError(
+                f"checkpoint {path!r} leaf {i} has shape {v.shape}, the "
+                f"template expects {np.shape(t)}"
+            )
     return jax.tree_util.tree_unflatten(treedef, leaves)
 
 

@@ -1,18 +1,60 @@
 """Misc helpers (ref:gpflowSlim/misc.py — shape helpers, name_scope decor).
 
-JAX analogs: ``named_scope`` profiling annotations (XProf attribution for
-the gram/chol/leapfrog regions, SURVEY §5 tracing), determinism check, and
-a NaN-guard toggle.
+JAX analogs: ``named_scope`` profiling annotations (profiler attribution
+for the gram/chol/leapfrog regions, SURVEY §5 tracing), determinism check,
+a NaN-guard toggle, and the persistent compile cache switch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import pathlib
+import subprocess
 
 import jax
 import numpy as np
 
-__all__ = ["named_scope", "debug_nans", "check_determinism", "print_summary"]
+__all__ = ["named_scope", "debug_nans", "check_determinism", "print_summary",
+           "enable_compile_cache", "require_gpu"]
+
+_REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; return its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here. Otherwise the cache lives at ``<repo>/.jax_cache``
+    (git-ignored): a fixed path, because the path is part of the cache key.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = str(_REPO_ROOT / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
+def require_gpu() -> dict:
+    """Describe the GPU that JAX runs on; raise ``RuntimeError`` if none.
+
+    Returns ``platform``, ``kind`` and ``count`` as JAX reports them, and
+    ``nvidia_smi``: the cards' ``name, power.limit`` lines. Measurements
+    name the card and its power limit, since a card capped below its
+    maximum runs slower under load.
+    """
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        raise RuntimeError(
+            f"no GPU: JAX runs on {devs[0].platform} ({devs[0].device_kind})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    return {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs), "nvidia_smi": smi}
 
 
 def named_scope(name: str):

@@ -1,7 +1,7 @@
 """End-to-end 2-D block-cyclic distributed GPR (parallel.grid_gpr).
 
 The reference is single-device (SURVEY §2.2) — these tests check the
-TPU-native addition against the single-device implementations: sharded
+distributed addition against the single-device implementations: sharded
 Gram tiles vs dense K, in-layout Cholesky vs jnp, 2-D TRSMs vs
 solve_triangular, and the full loss/grad vs models.GPR to f64 tolerance.
 Runs on the 8-virtual-CPU-device mesh from conftest.

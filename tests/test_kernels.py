@@ -242,3 +242,42 @@ def test_kernel_on_warped_inputs():
     W = rng.randn(3, 2)
     g = jax.grad(warp_and_gram)(W)
     assert np.isfinite(np.asarray(g)).all()
+
+
+def _map_oracle(kind, d2):
+    """Numpy f64 form of each stationary map of the squared distance."""
+    r = np.sqrt(d2 + 1e-12)
+    return {
+        "rbf": np.exp(-0.5 * d2),
+        "exponential": np.exp(-0.5 * r),
+        "matern12": np.exp(-r),
+        "matern32": (1 + np.sqrt(3) * r) * np.exp(-np.sqrt(3) * r),
+        "matern52": (1 + np.sqrt(5) * r + 5.0 / 3.0 * d2)
+        * np.exp(-np.sqrt(5) * r),
+        "cosine": np.cos(r),
+    }[kind]
+
+
+_KINDS = {"rbf": K.RBF, "exponential": K.Exponential, "matern12": K.Matern12,
+          "matern32": K.Matern32, "matern52": K.Matern52, "cosine": K.Cosine}
+
+
+@pytest.mark.parametrize("kind", sorted(_KINDS))
+def test_stationary_gram_each_kind_matches_numpy(kind):
+    # the one Stationary.K path, at a Gram larger than the zoo tests'
+    A, B = rng.randn(200, 3), rng.randn(130, 3)
+    kern = _KINDS[kind](3, variance=1.3, lengthscales=0.8)
+    assert kern._gram_kind == kind
+    np.testing.assert_allclose(
+        np.asarray(kern.K(A, B)), 1.3 * _map_oracle(kind, sqdist(A, B, 0.8)),
+        rtol=1e-10, atol=1e-12)
+
+
+def test_stationary_gram_ard_d8_matches_numpy():
+    A = rng.uniform(0, 1, (150, 8))
+    ls = np.linspace(0.2, 2.0, 8)
+    kern = K.Matern52(8, variance=0.6, lengthscales=ls, ARD=True)
+    np.testing.assert_allclose(
+        np.asarray(kern.K(A)), 0.6 * _map_oracle("matern52",
+                                                 sqdist(A, A, ls)),
+        rtol=1e-10, atol=1e-12)

@@ -292,7 +292,7 @@ def test_nan_logprob_treated_as_divergence():
     # An f32 posterior can return NaN logp/grad at extreme proposals
     # (non-PD Cholesky). `delta < -MAX` is False for NaN, so without the
     # NaN-robust guard the leaf leaked NaN into sum_accept -> dual
-    # averaging -> step size for the rest of warmup (observed on TPU:
+    # averaging -> step size for the rest of warmup (observed in f32:
     # eps=NaN, frozen chains, R-hat ~ 1e6). NaN must be flagged as a
     # divergence and excluded from the adaptation statistics.
     import jax
